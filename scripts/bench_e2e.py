@@ -41,15 +41,15 @@ def synth_dataset(workdir, n_chroms, n_peaks, peak_bp, frags_per_peak, seed=7):
     if all(os.path.exists(p) for p in (bam, bed, fa)):
         return bam, bed, fa
     os.makedirs(d, exist_ok=True)
-    from nucleoatac_tpu.io.bam_writer import write_bam
-    from nucleoatac_tpu.io.fasta import write_fasta
+    from nucleoatac_jax.io.bam_writer import write_bam
+    from nucleoatac_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(seed)
     per_chrom = n_peaks // n_chroms
     gap = 5000
     chrom_len = (peak_bp + gap) * per_chrom + 2 * gap
     names = [f"chr{i + 1}" for i in range(n_chroms)]
-    frags = []
+    parts = []  # per peak: [n, 3] (chrom index, raw left, raw size)
     bed_rows = []
     for ci, name in enumerate(names):
         for pi in range(per_chrom):
@@ -65,43 +65,25 @@ def synth_dataset(workdir, n_chroms, n_peaks, peak_bp, frags_per_peak, seed=7):
             dy = rng.choice(dyads, size=n_nuc)
             szs = np.clip(rng.normal(156, 14, n_nuc), 130, 250).astype(int)
             mids = dy + np.clip(rng.normal(0, 12, n_nuc), -40, 40).astype(int)
-            for m, s in zip(mids, szs):
-                frags.append((ci, int(m) - (int(s) - 1) // 2 - 4, int(s)))
             sl = np.clip(rng.exponential(42, n_short) + 24, 24, 128).astype(int)
             ll = rng.integers(start, end - 40, n_short)
-            for left, s in zip(ll, sl):
-                frags.append((ci, int(left), int(s)))
-    frags.sort(key=lambda t: (t[0], t[1]))
+            left = np.concatenate([mids - (szs - 1) // 2 - 4, ll])
+            parts.append(np.stack(
+                [np.full(len(left), ci), left, np.concatenate([szs, sl])],
+                axis=1,
+            ))
+    frags = np.concatenate(parts)
+    frags = frags[np.lexsort((frags[:, 1], frags[:, 0]))]  # stable
     write_bam(bam, names, [chrom_len] * n_chroms, frags)
     with open(bed, "w") as fh:
         for name, s, e in bed_rows:
             fh.write(f"{name}\t{s}\t{e}\n")
     # random sequence genome (bias signal is uniform-random; the PWM conv
     # still runs at full cost on device)
-    write_fasta(fa, {n: "".join(rng.choice(list("ACGT"), chrom_len))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    write_fasta(fa, {n: acgt[rng.integers(0, 4, chrom_len)].tobytes().decode()
                      for n in names})
     return bam, bed, fa
-
-
-def record_atscale(rec: dict) -> None:
-    """Append an at-scale run record to <repo>/ATSCALE.json (bounded log;
-    bench.py surfaces the latest config-4/config-5 rows in the bench of
-    record — VERDICT r4 item 7)."""
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "ATSCALE.json",
-    )
-    runs = []
-    if os.path.exists(path):
-        try:
-            with open(path) as fh:
-                runs = json.load(fh).get("runs", [])
-        except (OSError, ValueError):
-            runs = []
-    runs.append(rec)
-    with open(path, "w") as fh:
-        json.dump({"runs": runs[-100:]}, fh, indent=1)
-        fh.write("\n")
 
 
 def main():
@@ -128,7 +110,7 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from nucleoatac_tpu.utils.compile_cache import enable_compilation_cache
+    from nucleoatac_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -143,11 +125,11 @@ def main():
     os.makedirs(outdir, exist_ok=True)
     prefix = os.path.join(outdir, "run")
 
-    from nucleoatac_tpu.models.pipeline import run_pipeline
+    from nucleoatac_jax.models.pipeline import run_pipeline
 
     # standalone ingest probe (BASELINE config "ingest MB/s"): C++ BGZF
     # inflate + BAM parse + per-chrom midpoint sort
-    from nucleoatac_tpu.io.bam import scan_bam
+    from nucleoatac_jax.io.bam import scan_bam
 
     t0 = time.perf_counter()
     frags_probe = scan_bam(bam)
@@ -160,7 +142,7 @@ def main():
     if args.strict or args.finish_threads is not None or args.batch is not None:
         import dataclasses
 
-        from nucleoatac_tpu.config import NucParams, RunConfig, WindowParams
+        from nucleoatac_jax.config import NucParams, RunConfig, WindowParams
 
         run_cfg = RunConfig()
         if args.strict:
@@ -186,13 +168,10 @@ def main():
     total_bp = args.peaks * args.peak_bp
     n_frags = args.peaks * args.frags_per_peak
 
-    # Record the at-scale e2e number machine-readably (VERDICT r4 item 7):
-    # bench.py reads ATSCALE.json and carries the latest config-4-scale
-    # row into the bench-of-record JSON line.
-    from nucleoatac_tpu.config import RunConfig
-    from nucleoatac_tpu.core.chunk import ChunkList
-    from nucleoatac_tpu.io.bam import scan_bam as _scan
-    from nucleoatac_tpu.models.data import tile_chunks
+    from nucleoatac_jax.config import RunConfig
+    from nucleoatac_jax.core.chunk import ChunkList
+    from nucleoatac_jax.io.bam import scan_bam as _scan
+    from nucleoatac_jax.models.data import tile_chunks
 
     _cfg = RunConfig()
     n_windows = len(
@@ -201,24 +180,15 @@ def main():
             _cfg.window, _cfg.occ, _cfg.vmat,
         )
     )
-    record_atscale({
-        "kind": "e2e",
-        "strict": bool(args.strict),
-        "finish_threads": args.finish_threads,
-        "batch": args.batch,
-        "peaks": args.peaks,
-        "fragments": n_frags,
-        "backend": jax.default_backend(),
-        "wall_s": round(t_run, 2),
-        "windows": n_windows,
-        "windows_per_s": round(n_windows / t_run, 2),
-        "ts": time.strftime("%Y-%m-%dT%H:%M:%S"),
-    })
     print(json.dumps({
         "metric": "e2e pipeline peak-bp/s (ingest+occ+nuc+merge+nfr+writers)",
         "value": round(total_bp / t_run, 1),
         "unit": "bp/s",
         "wall_s": round(t_run, 2),
+        "windows": n_windows,
+        "windows_per_s": round(n_windows / t_run, 2),
+        "backend": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
         "peaks": args.peaks,
         "fragments": n_frags,
         "ingest_MBps": round(bam_mb / t_ingest, 1),

@@ -44,12 +44,12 @@ def main() -> None:
     import numpy as np
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from nucleoatac_tpu.utils.compile_cache import enable_compilation_cache
+    from nucleoatac_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
     from __graft_entry__ import _tiny_engine
-    from nucleoatac_tpu.models.data import pack_fragments
-    from nucleoatac_tpu.parallel import make_mesh
+    from nucleoatac_jax.models.data import pack_fragments
+    from nucleoatac_jax.parallel import make_mesh
 
     n_total = len(jax.devices())
     virtual = bool(args.virtual) or n_total == 1

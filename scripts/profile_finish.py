@@ -45,7 +45,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from nucleoatac_tpu.utils.compile_cache import enable_compilation_cache
+    from nucleoatac_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -54,7 +54,7 @@ def main():
     import dataclasses
     import tempfile
 
-    from nucleoatac_tpu.config import NucParams, RunConfig, WindowParams
+    from nucleoatac_jax.config import NucParams, RunConfig, WindowParams
 
     bam, bed, fa = synth_dataset(
         "/tmp", args.chroms, args.peaks, 2000, args.frags_per_peak
@@ -63,7 +63,7 @@ def main():
     if args.strict:
         cfg = dataclasses.replace(cfg, nuc=NucParams(strict=True))
 
-    from nucleoatac_tpu.models.pipeline import run_pipeline
+    from nucleoatac_jax.models.pipeline import run_pipeline
 
     outdir = tempfile.mkdtemp(prefix="nucleoatac_profile_")
     # warm-up at tiny scale compiles the programs outside the profile

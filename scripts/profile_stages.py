@@ -5,7 +5,7 @@ Times every chained stage of DeviceEngine (raster / occ / bias / convs /
 finish), the wire (upload, compact download), and the end-to-end loop,
 each with explicit block_until_ready sync, then prints a coherent table
 whose rows SUM to the measured end-to-end number, plus FLOPs/window and
-%-of-peak for the MXU stages.
+the achieved TF/s of the matmul stages.
 
 Usage: python scripts/profile_stages.py [--batch 128] [--core 1024]
        [--iters 20] [--frags 2048]
@@ -51,13 +51,13 @@ def main() -> None:
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from nucleoatac_tpu.utils.compile_cache import enable_compilation_cache
+    from nucleoatac_jax.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax.numpy as jnp
 
     from __graft_entry__ import _tiny_engine
-    from nucleoatac_tpu.models.data import (
+    from nucleoatac_jax.models.data import (
         encode_delta_fragments,
         pack_nibble_codes,
     )
@@ -171,9 +171,8 @@ def main() -> None:
     print(f"# FLOPs/window: {total_fpw/1e6:.1f} MF  " +
           " ".join(f"{k}={v/1e6:.1f}MF" for k, v in flops.items()))
 
-    peak_bf16 = 197e12  # v5e
     res = {}
-    print(f"\n{'stage':>14}  {'ms/batch':>9}  {'us/win':>7}  {'TF/s':>6}  notes")
+    print(f"\n{'stage':>14}  {'ms/batch':>9}  {'us/win':>7}  {'TF/s':>6}")
     for name, t in rows.items():
         fl = 0
         if name == "convs":
@@ -181,8 +180,7 @@ def main() -> None:
         elif name == "occ_packed":
             fl = (flops["occ_matmul"] + flops["occ_slide"]) * B
         tf = fl / t / 1e12 if fl else 0.0
-        note = f"{100*tf*1e12/peak_bf16:.1f}% bf16-peak" if fl else ""
-        print(f"{name:>14}  {t*1e3:9.2f}  {t/B*1e6:7.1f}  {tf:6.2f}  {note}")
+        print(f"{name:>14}  {t*1e3:9.2f}  {t/B*1e6:7.1f}  {tf:6.2f}")
         res[name] = t * 1e3
 
     stage_sum = sum(rows[k] for k in

@@ -24,9 +24,9 @@ import tempfile
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from nucleoatac_tpu.io.bam_writer import write_bam
-from nucleoatac_tpu.io.tabix import TabixReader
-from nucleoatac_tpu.models.pipeline import run_pipeline
+from nucleoatac_jax.io.bam_writer import write_bam
+from nucleoatac_jax.io.tabix import TabixReader
+from nucleoatac_jax.models.pipeline import run_pipeline
 
 
 def main() -> None:

@@ -1,8 +1,8 @@
 """Shared synthetic example-data builder for tests (known ground truth)."""
 import numpy as np
 
-from nucleoatac_tpu.io.bam_writer import write_bam
-from nucleoatac_tpu.io.fasta import write_fasta
+from nucleoatac_jax.io.bam_writer import write_bam
+from nucleoatac_jax.io.fasta import write_fasta
 
 DYADS = [1000, 1200, 1500, 2600]
 NFR_GAP = (1700, 2500)

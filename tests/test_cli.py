@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.cli.nucleoatac import main as nucleoatac_main
-from nucleoatac_tpu.cli.pyatac import main as pyatac_main
+from nucleoatac_jax.cli.nucleoatac import main as nucleoatac_main
+from nucleoatac_jax.cli.pyatac import main as pyatac_main
 from tests.synth import DYADS, NFR_GAP, make_example
 
 
@@ -49,7 +49,7 @@ def test_vprocess_roundtrip(ex, tmp_path_factory):
     assert nucleoatac_main([
         "vprocess", "--vplot", out + ".VMat", "--out", out, "--no_plots",
     ]) == 0
-    from nucleoatac_tpu.core.vmat import VMat
+    from nucleoatac_jax.core.vmat import VMat
 
     v = VMat.open(out + ".VMat")
     assert v.width == 147 and v.lower == 105
@@ -89,7 +89,7 @@ def test_pyatac_bias_and_pwm(ex, tmp_path_factory):
         "pwm", "--bam", ex["bam"], "--fasta", ex["fasta"], "--out", out,
         "--no_plots",
     ]) == 0
-    from nucleoatac_tpu.core.pwm import PWM
+    from nucleoatac_jax.core.pwm import PWM
 
     pwm = PWM.open(out + ".PWM.txt")
     assert pwm.length == 19
@@ -138,8 +138,8 @@ def test_bias_track_input_matches_fasta_pwm(tmp_path):
 
     import numpy as np
 
-    from nucleoatac_tpu.cli.nucleoatac import main as nucleoatac_main
-    from nucleoatac_tpu.cli.pyatac import main as pyatac_main
+    from nucleoatac_jax.cli.nucleoatac import main as nucleoatac_main
+    from nucleoatac_jax.cli.pyatac import main as pyatac_main
     from tests.synth import make_example
 
     ex = make_example(tmp_path)
@@ -185,7 +185,7 @@ def test_bias_track_input_matches_fasta_pwm(tmp_path):
 def test_build_config_strict_and_platform_flags():
     """Round-5 CLI knobs: --strict reaches NucParams.strict; defaults
     stay off."""
-    from nucleoatac_tpu.cli.nucleoatac import build_config, nucleoatac_parser
+    from nucleoatac_jax.cli.nucleoatac import build_config, nucleoatac_parser
 
     base = ["run", "--bam", "x.bam", "--bed", "x.bed", "--out", "o"]
     args = nucleoatac_parser().parse_args(base + ["--strict"])

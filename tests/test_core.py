@@ -3,12 +3,12 @@ VMat processing, PWM bias."""
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.config import OccParams, VMatParams, WindowParams
-from nucleoatac_tpu.core.chunk import Chunk, ChunkList
-from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
-from nucleoatac_tpu.core.mixture import FragmentMixDistribution
-from nucleoatac_tpu.core.pwm import PWM
-from nucleoatac_tpu.core.vmat import VMat
+from nucleoatac_jax.config import OccParams, VMatParams, WindowParams
+from nucleoatac_jax.core.chunk import Chunk, ChunkList
+from nucleoatac_jax.core.fragmentsizes import FragmentSizes
+from nucleoatac_jax.core.mixture import FragmentMixDistribution
+from nucleoatac_jax.core.pwm import PWM
+from nucleoatac_jax.core.vmat import VMat
 
 
 def test_chunklist_read_merge_clip(tmp_path):

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.models.distributed_pipeline import run_distributed
-from nucleoatac_tpu.models.pipeline import run_pipeline
+from nucleoatac_jax.models.distributed_pipeline import run_distributed
+from nucleoatac_jax.models.pipeline import run_pipeline
 from tests.synth import make_example
 
 
@@ -37,8 +37,8 @@ def test_two_host_shards_equal_single_run(ex, tmp_path_factory):
                     host_id=0, num_hosts=2)
     run_distributed(ex["bam"], ex["bed"], multi, fasta_path=ex["fasta"],
                     host_id=1, num_hosts=2)
-    from nucleoatac_tpu.config import RunConfig
-    from nucleoatac_tpu.models.distributed_pipeline import finalize_shards
+    from nucleoatac_jax.config import RunConfig
+    from nucleoatac_jax.models.distributed_pipeline import finalize_shards
 
     finalize_shards(multi, 2, ex["bam"], ex["bed"], ex["fasta"], None,
                     RunConfig())
@@ -59,8 +59,8 @@ def test_finalize_refuses_incomplete_or_stale_shards(ex, tmp_path_factory):
     a crashed host (missing manifest) or a different run (fingerprint)."""
     import json
 
-    from nucleoatac_tpu.config import RunConfig
-    from nucleoatac_tpu.models.distributed_pipeline import finalize_shards
+    from nucleoatac_jax.config import RunConfig
+    from nucleoatac_jax.models.distributed_pipeline import finalize_shards
 
     d = tmp_path_factory.mktemp("guard")
     multi = str(d / "multi")
@@ -103,13 +103,13 @@ def test_sharded_histogram_fit_equals_full_fit(ex):
     reproduce the full-scan histogram exactly, so the collective-fit path
     (fit_mixture_distributed under jax.distributed) is bit-equal to the
     replicated full fit."""
-    from nucleoatac_tpu.config import RunConfig
-    from nucleoatac_tpu.core.chunk import ChunkList
-    from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
-    from nucleoatac_tpu.core.mixture import FragmentMixDistribution
-    from nucleoatac_tpu.io.bam import scan_bam
-    from nucleoatac_tpu.models.occ import fit_mixture
-    from nucleoatac_tpu.parallel.distributed import host_tile_slice
+    from nucleoatac_jax.config import RunConfig
+    from nucleoatac_jax.core.chunk import ChunkList
+    from nucleoatac_jax.core.fragmentsizes import FragmentSizes
+    from nucleoatac_jax.core.mixture import FragmentMixDistribution
+    from nucleoatac_jax.io.bam import scan_bam
+    from nucleoatac_jax.models.occ import fit_mixture
+    from nucleoatac_jax.parallel.distributed import host_tile_slice
 
     cfg = RunConfig()
     frags = scan_bam(ex["bam"])

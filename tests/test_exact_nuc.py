@@ -11,17 +11,17 @@ import gzip
 import numpy as np
 import pytest
 
-from nucleoatac_tpu import mirror
-from nucleoatac_tpu.config import NucParams, RunConfig, WindowParams
-from nucleoatac_tpu.core.chunk import ChunkList
-from nucleoatac_tpu.core.pwm import PWM
-from nucleoatac_tpu.core.vmat import VMat
-from nucleoatac_tpu.io.bam import scan_bam
-from nucleoatac_tpu.io.fasta import FastaFile
-from nucleoatac_tpu.models.data import tile_chunks
-from nucleoatac_tpu.models.nuc import NucCall, chunk_log_bias
-from nucleoatac_tpu.models.pipeline import run_pipeline
-from nucleoatac_tpu.utils.numerics import (
+from nucleoatac_jax import mirror
+from nucleoatac_jax.config import NucParams, RunConfig, WindowParams
+from nucleoatac_jax.core.chunk import ChunkList
+from nucleoatac_jax.core.pwm import PWM
+from nucleoatac_jax.core.vmat import VMat
+from nucleoatac_jax.io.bam import scan_bam
+from nucleoatac_jax.io.fasta import FastaFile
+from nucleoatac_jax.models.data import tile_chunks
+from nucleoatac_jax.models.nuc import NucCall, chunk_log_bias
+from nucleoatac_jax.models.pipeline import run_pipeline
+from nucleoatac_jax.utils.numerics import (
     greedy_select_fast,
     local_max_candidates_fast,
 )
@@ -29,7 +29,7 @@ from tests.synth import make_example
 
 
 def _q64(frags, chunks, cfg):
-    from nucleoatac_tpu.models.occ import fit_mixture
+    from nucleoatac_jax.models.occ import fit_mixture
 
     fs, _ = fit_mixture(frags, chunks, cfg)
     h = fs.get(cfg.vmat.lower, cfg.vmat.upper).astype(np.float64)
@@ -131,7 +131,7 @@ def test_nucpos_rows_equal_f64_mirror_strict(strict_run):
     ex, cfg, out = strict_run
     # occ tracks for the oracle's occ columns: read back the (f64-exact)
     # occ stage outputs the pipeline itself wrote
-    from nucleoatac_tpu.models.standalone import OccTrackReader
+    from nucleoatac_jax.models.standalone import OccTrackReader
 
     frags = scan_bam(ex["bam"])
     chunks = ChunkList.read(ex["bed"], frags.chrom_dict).merge()
@@ -159,7 +159,7 @@ def test_default_mode_exact_except_smooth(tmp_path):
         ex["bam"], ex["bed"], out, fasta_path=ex["fasta"], cfg=cfg,
         write_plots=False,
     )
-    from nucleoatac_tpu.models.standalone import OccTrackReader
+    from nucleoatac_jax.models.standalone import OccTrackReader
 
     frags = scan_bam(ex["bam"])
     chunks = ChunkList.read(ex["bed"], frags.chrom_dict).merge()
@@ -183,7 +183,7 @@ def test_default_mode_exact_except_smooth(tmp_path):
 def test_cpp_refinisher_equals_numpy(tmp_path):
     """The C++ refinisher (io/native/nucrefine.cpp) matches the numpy
     mirror-based fallback to f64 roundoff on stats and full tracks."""
-    from nucleoatac_tpu.models.nuc_exact import NucRefinisher
+    from nucleoatac_jax.models.nuc_exact import NucRefinisher
 
     cfg = RunConfig(window=WindowParams(core=256, batch=4))
     rng = np.random.default_rng(3)
@@ -215,8 +215,8 @@ def test_fft_full_tracks_equal_mirror():
     """Round 5: TileSession.full_stat_tracks (frequency-domain
     correlations) matches the f64 mirror and the C++ fresh-sums kernel
     within the module's operation-order band on every stat track."""
-    from nucleoatac_tpu import mirror
-    from nucleoatac_tpu.models.nuc_exact import NucRefinisher, TileSession
+    from nucleoatac_jax import mirror
+    from nucleoatac_jax.models.nuc_exact import NucRefinisher, TileSession
 
     cfg = RunConfig(window=WindowParams(core=256, batch=4))
     rng = np.random.default_rng(5)
@@ -257,7 +257,7 @@ def test_fft_full_tracks_equal_mirror():
 def _tie_dataset(d):
     """Two identical fragment clusters closer than nuc_sep -> exactly tied
     f64 scores conflicting in greedy selection."""
-    from nucleoatac_tpu.io.bam_writer import write_bam
+    from nucleoatac_jax.io.bam_writer import write_bam
 
     frags = []
     for center in (1000, 1100):  # 100 bp apart < nuc_sep=120 -> conflict
@@ -283,7 +283,7 @@ def test_near_tie_resolved_per_decision(tmp_path):
     res = run_pipeline(bam, bed, out, cfg=cfg, write_plots=False)
     assert res.nuc.n_resolved_chunks > 0  # the tie was actually detected
     got = _read_rows(out + ".nucpos.bed.gz")
-    from nucleoatac_tpu.models.standalone import OccTrackReader
+    from nucleoatac_jax.models.standalone import OccTrackReader
 
     fr = scan_bam(bam)
     chunks = ChunkList.read(bed, fr.chrom_dict).merge()
@@ -315,7 +315,7 @@ def test_near_tie_strict_rows_equal_mirror(tmp_path):
     out = str(tmp_path / "out")
     run_pipeline(bam, bed, out, cfg=cfg, write_plots=False)
     got = _read_rows(out + ".nucpos.bed.gz")
-    from nucleoatac_tpu.models.standalone import OccTrackReader
+    from nucleoatac_jax.models.standalone import OccTrackReader
 
     fr = scan_bam(bam)
     chunks = ChunkList.read(bed, fr.chrom_dict).merge()
@@ -340,7 +340,7 @@ def test_fast_path_engages(tmp_path, monkeypatch):
     )
     from bench_e2e import synth_dataset
 
-    from nucleoatac_tpu.models import nuc_exact
+    from nucleoatac_jax.models import nuc_exact
 
     bam, bed, fa = synth_dataset(str(tmp_path), 1, 8, 2000, 500, seed=11)
     calls = {"full_tracks": 0}

@@ -6,11 +6,11 @@ elsewhere."""
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.config import RunConfig, WindowParams
-from nucleoatac_tpu.core.chunk import ChunkList
-from nucleoatac_tpu.io.bam import scan_bam
-from nucleoatac_tpu.models.engine import DeviceEngine
-from nucleoatac_tpu.models.occ import OccStage, fit_mixture
+from nucleoatac_jax.config import RunConfig, WindowParams
+from nucleoatac_jax.core.chunk import ChunkList
+from nucleoatac_jax.io.bam import scan_bam
+from nucleoatac_jax.models.engine import DeviceEngine
+from nucleoatac_jax.models.occ import OccStage, fit_mixture
 from tests.synth import make_example
 
 
@@ -63,7 +63,7 @@ def test_occ_exact_on_engineered_near_ties(tmp_path):
     7): sparse windows (0-3 fragments) produce small LL margins, so many
     positions fail device certification and exercise the f64 refinish —
     every position must still equal the f64 mirror exactly."""
-    from nucleoatac_tpu.io.bam_writer import write_bam
+    from nucleoatac_jax.io.bam_writer import write_bam
 
     rng = np.random.default_rng(11)
     frags = []
@@ -129,8 +129,8 @@ def test_occ_certification_engages(tmp_path, monkeypatch):
     import numpy as np
     from bench_e2e import synth_dataset
 
-    from nucleoatac_tpu.models import occ as occ_mod
-    from nucleoatac_tpu.models.pipeline import run_pipeline
+    from nucleoatac_jax.models import occ as occ_mod
+    from nucleoatac_jax.models.pipeline import run_pipeline
 
     bam, bed, fa = synth_dataset(str(tmp_path), 1, 8, 2000, 500, seed=11)
     seen = {"flagged": 0, "bp": 0}

@@ -4,16 +4,16 @@ optimization, not a semantic change."""
 import gzip
 import os
 
-from nucleoatac_tpu.config import RunConfig, WindowParams
-from nucleoatac_tpu.core.chunk import ChunkList
-from nucleoatac_tpu.core.pwm import PWM
-from nucleoatac_tpu.io.bam import scan_bam
-from nucleoatac_tpu.io.fasta import FastaFile
-from nucleoatac_tpu.models.engine import DeviceEngine
-from nucleoatac_tpu.models.fused import fused_supported, run_fused
-from nucleoatac_tpu.models.nuc import NucStage
-from nucleoatac_tpu.models.occ import OccStage, fit_mixture
-from nucleoatac_tpu.models.pipeline import occ_lookup_from_tracks
+from nucleoatac_jax.config import RunConfig, WindowParams
+from nucleoatac_jax.core.chunk import ChunkList
+from nucleoatac_jax.core.pwm import PWM
+from nucleoatac_jax.io.bam import scan_bam
+from nucleoatac_jax.io.fasta import FastaFile
+from nucleoatac_jax.models.engine import DeviceEngine
+from nucleoatac_jax.models.fused import fused_supported, run_fused
+from nucleoatac_jax.models.nuc import NucStage
+from nucleoatac_jax.models.occ import OccStage, fit_mixture
+from nucleoatac_jax.models.pipeline import occ_lookup_from_tracks
 from tests.synth import make_example
 
 FILES = [
@@ -84,7 +84,7 @@ def test_fused_evicts_occ_tracks_when_not_kept(tmp_path):
     assert occ_f.tracks == {}  # all evicted as nuc consumed them
     assert nuc_f.tracks == {}
     # the written bedgraphs still reconstruct the tracks (nfr path)
-    from nucleoatac_tpu.models.standalone import OccTrackReader, _LazyOccTracks
+    from nucleoatac_jax.models.standalone import OccTrackReader, _LazyOccTracks
 
     lazy = _LazyOccTracks(OccTrackReader(out), chunks)
     tr = lazy[0]
@@ -98,9 +98,9 @@ def test_fused_and_two_pass_nfr_consume_same_occ_surface(tmp_path):
     reads the occ bedgraph). Round-3 review finding: the two-pass path
     used to hand NFR the exact in-memory tracks, which can flip an NFR
     threshold decision within 5e-6 of max_occ_upper."""
-    from nucleoatac_tpu.models.nfr import call_nfrs
-    from nucleoatac_tpu.models.merge import merge_maps
-    from nucleoatac_tpu.models.standalone import OccTrackReader, _LazyOccTracks
+    from nucleoatac_jax.models.nfr import call_nfrs
+    from nucleoatac_jax.models.merge import merge_maps
+    from nucleoatac_jax.models.standalone import OccTrackReader, _LazyOccTracks
 
     ex = make_example(tmp_path)
     cfg = RunConfig(window=WindowParams(core=256, batch=4))
@@ -150,8 +150,8 @@ def test_pool_transfer_run_outputs_identical(tmp_path):
 
     from tests.synth import make_example
 
-    from nucleoatac_tpu.config import RunConfig, WindowParams
-    from nucleoatac_tpu.models.pipeline import run_pipeline
+    from nucleoatac_jax.config import RunConfig, WindowParams
+    from nucleoatac_jax.models.pipeline import run_pipeline
 
     ex = make_example(tmp_path)
     outs = {}

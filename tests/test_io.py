@@ -4,10 +4,10 @@ import struct
 
 import numpy as np
 
-from nucleoatac_tpu.io.bedgraph import format_value, vals_to_intervals
-from nucleoatac_tpu.io.bgzf import BGZF_EOF, BGZFWriter, read_bgzf
-from nucleoatac_tpu.io.fasta import FastaFile, write_fasta
-from nucleoatac_tpu.io.tabix import TabixWriter, reg2bin
+from nucleoatac_jax.io.bedgraph import format_value, vals_to_intervals
+from nucleoatac_jax.io.bgzf import BGZF_EOF, BGZFWriter, read_bgzf
+from nucleoatac_jax.io.fasta import FastaFile, write_fasta
+from nucleoatac_jax.io.tabix import TabixWriter, reg2bin
 
 
 def walk_bgzf_blocks(data: bytes):
@@ -123,7 +123,7 @@ def test_indexed_tabix_fetch_matches_full_scan(tmp_path):
 
     import numpy as np
 
-    from nucleoatac_tpu.io.tabix import TabixReader, TabixWriter
+    from nucleoatac_jax.io.tabix import TabixReader, TabixWriter
 
     rng = np.random.default_rng(5)
     path = str(tmp_path / "big.bed.gz")
@@ -159,7 +159,7 @@ def test_unindexed_tabix_reader_warns(tmp_path, caplog):
     import logging
     import os
 
-    from nucleoatac_tpu.io.tabix import TabixReader, TabixWriter
+    from nucleoatac_jax.io.tabix import TabixReader, TabixWriter
 
     path = str(tmp_path / "t.bed.gz")
     with TabixWriter(path) as w:
@@ -180,8 +180,8 @@ def test_add_many_byte_identical_to_add(tmp_path):
     long intervals spanning several windows."""
     import numpy as np
 
-    from nucleoatac_tpu.io.bedgraph import vals_to_intervals
-    from nucleoatac_tpu.io.tabix import TabixWriter
+    from nucleoatac_jax.io.bedgraph import vals_to_intervals
+    from nucleoatac_jax.io.tabix import TabixWriter
 
     rng = np.random.default_rng(5)
     # records engineered to cross 16kb windows and bins: mixed short runs,
@@ -239,9 +239,9 @@ def test_native_bedgraph_formatter_matches_python():
     import numpy as np
     import pytest
 
-    from nucleoatac_tpu.io.bedgraph import format_value
+    from nucleoatac_jax.io.bedgraph import format_value
     try:
-        from nucleoatac_tpu.io.native.binding import (
+        from nucleoatac_jax.io.native.binding import (
             HAS_FORMAT_BEDGRAPH,
             format_bedgraph_native,
         )
@@ -281,7 +281,7 @@ def test_fasta_fetch_thread_safe(tmp_path):
 
     import numpy as np
 
-    from nucleoatac_tpu.io.fasta import FastaFile, write_fasta
+    from nucleoatac_jax.io.fasta import FastaFile, write_fasta
 
     rng = np.random.default_rng(2)
     seq = "".join(rng.choice(list("ACGT"), 100_000))
@@ -310,7 +310,7 @@ def test_parse_bedgraph_native_roundtrip(tmp_path):
     import pytest
 
     try:
-        from nucleoatac_tpu.io.native.binding import (
+        from nucleoatac_jax.io.native.binding import (
             HAS_PARSE_BEDGRAPH,
             parse_bedgraph_native,
         )
@@ -344,8 +344,8 @@ def test_parse_bedgraph_native_roundtrip(tmp_path):
     *_, consumed2 = parse_bedgraph_native(cut)
     assert consumed2 == len(text) - len(lines[-1]) - 1
     # block-stream vs naive per-line fill through the occ-track reader
-    from nucleoatac_tpu.core.chunk import Chunk, ChunkList
-    from nucleoatac_tpu.models.standalone import _BedgraphBlockStream
+    from nucleoatac_jax.core.chunk import Chunk, ChunkList
+    from nucleoatac_jax.models.standalone import _BedgraphBlockStream
 
     gz = str(tmp_path / "x.occ.bedgraph.gz")
     with gzip.open(gz, "wb") as fh:
@@ -371,8 +371,8 @@ def test_bedgraph_block_stream_python_fallback(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from nucleoatac_tpu.io.native import binding
-    from nucleoatac_tpu.models.standalone import _BedgraphBlockStream
+    from nucleoatac_jax.io.native import binding
+    from nucleoatac_jax.models.standalone import _BedgraphBlockStream
 
     rng = np.random.default_rng(9)
     lines = []

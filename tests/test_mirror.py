@@ -1,10 +1,10 @@
 """Sanity tests of the float64 mirror math (the oracle itself)."""
 import numpy as np
 
-from nucleoatac_tpu.config import MixtureParams, OccParams
-from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
-from nucleoatac_tpu.core.mixture import FragmentMixDistribution, fit_truncated_exponential_tau
-from nucleoatac_tpu.mirror import (
+from nucleoatac_jax.config import MixtureParams, OccParams
+from nucleoatac_jax.core.fragmentsizes import FragmentSizes
+from nucleoatac_jax.core.mixture import FragmentMixDistribution, fit_truncated_exponential_tau
+from nucleoatac_jax.mirror import (
     gauss_smooth,
     greedy_select,
     local_max_candidates,

@@ -1,25 +1,19 @@
 """Native C++ BAM scanner vs pure-Python scanner (golden equality)."""
-import os
-import subprocess
 
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.config import IngestParams
-from nucleoatac_tpu.io.bam_py import scan_bam_py
-from nucleoatac_tpu.io.bam_writer import write_bam
-
-NATIVE_DIR = os.path.join(
-    os.path.dirname(__file__), "..", "nucleoatac_tpu", "io", "native"
-)
+from nucleoatac_jax.config import IngestParams
+from nucleoatac_jax.io.bam_py import scan_bam_py
+from nucleoatac_jax.io.bam_writer import write_bam
 
 
 @pytest.fixture(scope="module")
 def native():
-    so = os.path.join(NATIVE_DIR, "libnucio.so")
-    if not os.path.exists(so):
-        subprocess.run(["make"], cwd=NATIVE_DIR, check=True, capture_output=True)
-    from nucleoatac_tpu.io.native.binding import scan_bam_native
+    from nucleoatac_jax.io.native import build
+
+    build("nucio")
+    from nucleoatac_jax.io.native.binding import scan_bam_native
 
     return scan_bam_native
 

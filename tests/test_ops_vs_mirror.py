@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.config import OccParams
-from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
-from nucleoatac_tpu.core.mixture import FragmentMixDistribution
-from nucleoatac_tpu.core.vmat import VMat
-from nucleoatac_tpu import mirror
-from nucleoatac_tpu.ops import (
+from nucleoatac_jax.config import OccParams
+from nucleoatac_jax.core.fragmentsizes import FragmentSizes
+from nucleoatac_jax.core.mixture import FragmentMixDistribution
+from nucleoatac_jax.core.vmat import VMat
+from nucleoatac_jax import mirror
+from nucleoatac_jax.ops import (
     bias_mat_batch,
     gauss_kernel,
     gauss_smooth_batch,
@@ -19,7 +19,7 @@ from nucleoatac_tpu.ops import (
     occupancy_batch,
     rasterize_batch,
 )
-from nucleoatac_tpu.ops.xcorr import build_kernels
+from nucleoatac_jax.ops.xcorr import build_kernels
 
 B, W = 3, 512
 LOWER, UPPER = 0, 251
@@ -152,13 +152,13 @@ def test_peaks_match_mirror(rng):
 
 
 def test_diag_conv_path_matches_direct_and_mirror(rng):
-    """The MXU-shaped diag-matmul conv restructure (ops/xcorr.py ::
+    """The diag-matmul conv restructure (ops/xcorr.py ::
     nuc_conv_outputs_diag) must agree with the direct conv stacks and
     with the f64 mirror's eight footprint reductions."""
     import jax
 
-    from nucleoatac_tpu.mirror.windows import _corr_rows
-    from nucleoatac_tpu.ops.xcorr import (
+    from nucleoatac_jax.mirror.windows import _corr_rows
+    from nucleoatac_jax.ops.xcorr import (
         _conv_stack,
         build_kernels,
         build_kernels_diag,

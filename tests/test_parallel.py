@@ -24,7 +24,7 @@ def test_sharded_matches_single_device(rng):
     import jax.numpy as jnp
 
     from __graft_entry__ import _example_args, _tiny_engine
-    from nucleoatac_tpu.parallel import make_mesh, sharded_full_step, sharded_size_histogram
+    from nucleoatac_jax.parallel import make_mesh, sharded_full_step, sharded_size_histogram
 
     cfg, engine = _tiny_engine(batch=8)
     mids, sizes, valid, logb = _example_args(cfg, engine, batch=8)
@@ -51,8 +51,8 @@ def test_mesh_engine_matches_unsharded_packed_seq(rng):
     import jax.numpy as jnp
 
     from __graft_entry__ import _tiny_engine
-    from nucleoatac_tpu.models.data import pack_fragments
-    from nucleoatac_tpu.parallel import make_mesh
+    from nucleoatac_jax.models.data import pack_fragments
+    from nucleoatac_jax.parallel import make_mesh
 
     mesh = make_mesh(8)
     cfg, eng_mesh = _tiny_engine(batch=8, mesh=mesh)
@@ -71,8 +71,8 @@ def test_mesh_engine_matches_unsharded_packed_seq(rng):
 
 
 def test_auto_mesh_selection():
-    from nucleoatac_tpu.config import RunConfig, WindowParams
-    from nucleoatac_tpu.models.pipeline import auto_mesh
+    from nucleoatac_jax.config import RunConfig, WindowParams
+    from nucleoatac_jax.models.pipeline import auto_mesh
 
     assert auto_mesh(RunConfig(window=WindowParams(batch=8))) is not None  # 8 % 8 == 0
     assert auto_mesh(RunConfig(window=WindowParams(batch=9))) is None

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from nucleoatac_tpu.config import RunConfig
-from nucleoatac_tpu.io.bam_writer import write_bam
-from nucleoatac_tpu.io.fasta import write_fasta
-from nucleoatac_tpu.models.pipeline import run_pipeline
+from nucleoatac_jax.config import RunConfig
+from nucleoatac_jax.io.bam_writer import write_bam
+from nucleoatac_jax.io.fasta import write_fasta
+from nucleoatac_jax.models.pipeline import run_pipeline
 
 DYADS = [1000, 1200, 1500, 2600]
 NFR_GAP = (1700, 2500)
@@ -144,7 +144,7 @@ def test_pipelined_threaded_matches_serial():
     import jax.numpy as jnp
     import numpy as np
 
-    from nucleoatac_tpu.models.occ import _pipelined
+    from nucleoatac_jax.models.occ import _pipelined
 
     items = [np.full((4, 8), i, np.float32) for i in range(12)]
 

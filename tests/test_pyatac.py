@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from nucleoatac_tpu import pyatac as P
-from nucleoatac_tpu.core.chunk import Chunk, ChunkList
-from nucleoatac_tpu.io.bam import BamFragments
+from nucleoatac_jax import pyatac as P
+from nucleoatac_jax.core.chunk import Chunk, ChunkList
+from nucleoatac_jax.io.bam import BamFragments
 
 
 @pytest.fixture
@@ -95,7 +95,7 @@ def test_track_signal_matrix_strand_and_nan():
 
 
 def test_nucleotide_freq_matrix_revcomp(tmp_path):
-    from nucleoatac_tpu.io.fasta import FastaFile, write_fasta
+    from nucleoatac_jax.io.fasta import FastaFile, write_fasta
 
     seq = "ACGTACGTACGTACGTACGT"
     fa = str(tmp_path / "t.fa")
@@ -118,9 +118,9 @@ def test_vplot_device_equals_host(tmp_path):
     the host loop exactly (integer counts), including '-' strand flips."""
     from tests.synth import make_example
 
-    from nucleoatac_tpu import pyatac as P
-    from nucleoatac_tpu.core.chunk import Chunk, ChunkList
-    from nucleoatac_tpu.io.bam import scan_bam
+    from nucleoatac_jax import pyatac as P
+    from nucleoatac_jax.core.chunk import Chunk, ChunkList
+    from nucleoatac_jax.io.bam import scan_bam
 
     ex = make_example(tmp_path)
     frags = scan_bam(ex["bam"])

@@ -3,7 +3,7 @@ import gzip
 
 import pytest
 
-from nucleoatac_tpu.models.pipeline import run_pipeline
+from nucleoatac_jax.models.pipeline import run_pipeline
 from tests.synth import make_example
 
 

@@ -7,20 +7,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nucleoatac_tpu.core.pwm import BASE_INDEX, PWM
-from nucleoatac_tpu.models.data import (
+from nucleoatac_jax.core.pwm import BASE_INDEX, PWM
+from nucleoatac_jax.models.data import (
     encode_delta_fragments,
     pack_fragments,
     pack_nibble_codes,
 )
-from nucleoatac_tpu.ops import (
+from nucleoatac_jax.ops import (
     rasterize_batch,
     rasterize_delta_batch,
     rasterize_packed_batch,
     unpack_delta_fragments,
     unpack_fragments,
 )
-from nucleoatac_tpu.ops.pwmseq import pwm_bias_batch, unpack_nibble_codes
+from nucleoatac_jax.ops.pwmseq import pwm_bias_batch, unpack_nibble_codes
 
 
 def test_pack_roundtrip(rng):
@@ -152,9 +152,9 @@ def test_engine_seq_path_matches_host_bias_path(rng):
     from __graft_entry__ import _tiny_engine
 
     cfg, _ = _tiny_engine()
-    from nucleoatac_tpu.models.engine import DeviceEngine
-    from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
-    from nucleoatac_tpu.core.mixture import FragmentMixDistribution
+    from nucleoatac_jax.models.engine import DeviceEngine
+    from nucleoatac_jax.core.fragmentsizes import FragmentSizes
+    from nucleoatac_jax.core.mixture import FragmentMixDistribution
 
     s = np.arange(cfg.sizes.lower, cfg.sizes.upper, dtype=np.float64)
     counts = (
@@ -239,7 +239,7 @@ def test_delta_guards():
 
     import pytest
 
-    from nucleoatac_tpu.config import (
+    from nucleoatac_jax.config import (
         OccParams,
         RunConfig,
         SizesParams,
@@ -258,7 +258,7 @@ def test_delta_guards():
     with pytest.raises(ValueError, match="grid"):
         RunConfig(occ=OccParams(grid_size=300))
     # CLI falls back to packed instead of raising
-    from nucleoatac_tpu.cli.nucleoatac import build_config, nucleoatac_parser
+    from nucleoatac_jax.cli.nucleoatac import build_config, nucleoatac_parser
 
     args = nucleoatac_parser().parse_args(
         ["occ", "--bam", "x", "--bed", "y", "--out", "z", "--upper", "300"]
@@ -409,7 +409,7 @@ def test_run_step_delta_unpack_matches_stages(rng):
 
 def _tiny12(rng):
     """Delta + delta12 encodings of the same fragments."""
-    from nucleoatac_tpu.models.data import (
+    from nucleoatac_jax.models.data import (
         delta12_entry_capacity,
         encode_delta12_batch,
         encode_delta_batch,
@@ -453,11 +453,11 @@ def test_delta12_run_step_matches_delta(rng):
 def test_delta12_sparse_extreme_gaps(rng):
     """Sparse windows with multi-hundred-bp gaps stay within the declared
     record capacity and decode exactly."""
-    from nucleoatac_tpu.models.data import (
+    from nucleoatac_jax.models.data import (
         delta12_entry_capacity,
         encode_delta12_batch,
     )
-    from nucleoatac_tpu.ops.rasterize import unpack_delta12_fragments
+    from nucleoatac_jax.ops.rasterize import unpack_delta12_fragments
 
     W = 1536
     mids = np.array([[0, 16, 31, 254, 255, 256, 1535]], np.int64)
@@ -482,19 +482,19 @@ def test_pool_wire_bitwise_equals_delta12():
     from tests.synth import make_example
     import tempfile, pathlib
 
-    from nucleoatac_tpu.config import RunConfig, WindowParams
-    from nucleoatac_tpu.core.chunk import ChunkList
-    from nucleoatac_tpu.core.pwm import PWM
-    from nucleoatac_tpu.io.bam import scan_bam
-    from nucleoatac_tpu.models.data import (
+    from nucleoatac_jax.config import RunConfig, WindowParams
+    from nucleoatac_jax.core.chunk import ChunkList
+    from nucleoatac_jax.core.pwm import PWM
+    from nucleoatac_jax.io.bam import scan_bam
+    from nucleoatac_jax.models.data import (
         delta12_entry_capacity,
         make_delta12_batches,
         make_pool_batches,
         pack_nibble_codes,
         tile_chunks,
     )
-    from nucleoatac_tpu.models.engine import DeviceEngine
-    from nucleoatac_tpu.models.occ import fit_mixture
+    from nucleoatac_jax.models.engine import DeviceEngine
+    from nucleoatac_jax.models.occ import fit_mixture
 
     d = pathlib.Path(tempfile.mkdtemp())
     ex = make_example(d)
@@ -546,18 +546,18 @@ def test_2bit_seq_wire_bitwise_equals_nibble():
     from tests.synth import make_example
     import tempfile, pathlib
 
-    from nucleoatac_tpu.config import RunConfig, WindowParams
-    from nucleoatac_tpu.core.chunk import ChunkList
-    from nucleoatac_tpu.core.pwm import PWM
-    from nucleoatac_tpu.io.bam import scan_bam
-    from nucleoatac_tpu.models.data import (
+    from nucleoatac_jax.config import RunConfig, WindowParams
+    from nucleoatac_jax.core.chunk import ChunkList
+    from nucleoatac_jax.core.pwm import PWM
+    from nucleoatac_jax.io.bam import scan_bam
+    from nucleoatac_jax.models.data import (
         make_pool_batches,
         pack_2bit_codes,
         pack_nibble_codes,
         tile_chunks,
     )
-    from nucleoatac_tpu.models.engine import DeviceEngine
-    from nucleoatac_tpu.models.occ import fit_mixture
+    from nucleoatac_jax.models.engine import DeviceEngine
+    from nucleoatac_jax.models.occ import fit_mixture
 
     d = pathlib.Path(tempfile.mkdtemp())
     ex = make_example(d)
